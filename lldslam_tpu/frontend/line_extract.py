@@ -1,4 +1,4 @@
-"""Line segment detection + band descriptors, TPU-native.
+"""Line segment detection + band descriptors as batched device programs.
 
 Replaces the external LBDMOD library (reference consumes it through
 `LineExtractor::ExtractLines(im, keylines, descs)` — SURVEY.md §0.1;
@@ -8,8 +8,8 @@ Detector: gradient-aligned Hough transform — every edge pixel votes only
 into the (rho, phi) bin of its own gradient orientation, the accumulator is
 NMS'd and the top-K peaks become segments whose extent is the robust span of
 supporting edge pixels along the line. One batched device program: Sobel ->
-vote scatter -> peak top-k -> (K x pixels) masked span reduction. This is a
-TPU-shaped reformulation, not a port: LSD's sequential region growing has no
+vote scatter -> peak top-k -> (K x pixels) masked span reduction. This is an
+accelerator-shaped reformulation, not a port: LSD's sequential region growing has no
 efficient XLA form, while Hough voting and masked reductions map onto it
 directly.
 

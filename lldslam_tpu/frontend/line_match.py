@@ -42,7 +42,7 @@ def _desc_dist(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Pairwise L2 distance (Na, Nb) via the matmul identity — the
     broadcast-difference form materializes an (Na, Nb, D) tensor
     (~63 MB at the 512x256x40 reference-workload shapes; this is one
-    (Na, D)@(D, Nb) MXU matmul)."""
+    (Na, D)@(D, Nb) matrix product)."""
     sq = jnp.sum(a * a, -1)[:, None] + jnp.sum(b * b, -1)[None] \
         - 2.0 * (a @ b.T)
     return jnp.sqrt(jnp.maximum(sq, 0.0))
@@ -75,9 +75,8 @@ def match_stereo_lines(
     # CHEAP per-pair geometry proxy over all (L, R) pairs: lift only the
     # two left ENDPOINTS against each right line and require positive,
     # bounded disparity. The full 8-sample PCA triangulation below runs
-    # only for the SELECTED pair per left line — the all-pairs version was
-    # 65K batched 3x3 eigh at the 256-line reference workload
-    # (~114 ms/frame on-chip; this form is ~7 ms).
+    # only for the SELECTED pair per left line — the all-pairs version is
+    # 65K batched 3x3 eigh at the 256-line reference workload.
     a_safe = jnp.where(jnp.abs(a_r) < 1e-6, 1e-6, a_r)
     Pe = jnp.stack([kl.p1, kl.p2], axis=1)                       # (L, 2, 2)
     ye = Pe[..., 1]                                              # (L, 2)

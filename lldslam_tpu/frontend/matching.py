@@ -3,8 +3,9 @@
 Replaces the candidate-search loops of `ORBmatcher::SearchByProjection`
 (reference src/ORBmatcher.cc:45-157 local-map variant; :1328-1470 last-frame
 variant) with dense masked Hamming matrices — the grid buckets
-(Frame::GetFeaturesInArea) exist only to prune the CPU search; on TPU a masked
-(points x keypoints) distance matrix is one fused VPU pass.
+(Frame::GetFeaturesInArea) exist only to prune the CPU search; on an
+accelerator a masked (points x keypoints) distance matrix is one matrix
+product plus fused elementwise gates.
 
 Gates implemented (ORBmatcher.cc:45-157):
 - frustum: positive depth, image bounds, distance in [minDist, maxDist],
@@ -56,32 +57,6 @@ def predict_octave(dist, max_dist, n_levels: int, log_scale: float):
     ratio = max_dist / jnp.maximum(dist, 1e-6)
     lvl = jnp.ceil(jnp.log(jnp.maximum(ratio, 1e-6)) / log_scale).astype(jnp.int32)
     return jnp.clip(lvl, 0, n_levels - 1)
-
-
-FORCE_PALLAS_MATCH: bool | None = None
-
-
-def use_pallas_match() -> bool:
-    """Gate for the fused Pallas best-2 matcher (ops/pallas_match.py).
-
-    ON for TPU backends (round 5): the three-round "Mosaic compile helper
-    exit 1" crash was the bf16 x bf16 -> f32 tpu.matmul — this Mosaic
-    rejects mixed-precision matmuls; casting the bit tiles to f32 IN VMEM
-    fixes it (found via the identical failure in ops/patch_sample.py).
-    Measured on-chip at bench shapes (4096 x 2048): kernel 2.5 ms vs 2.7 ms
-    for the XLA distance_matrix + two argmin passes, with the (M, N) i32
-    distance matrix never materialized in HBM. Best index and both
-    distances match the XLA path element-wise (verified on-chip);
-    `second_kp` may differ on equal-distance ties (the fold visits columns
-    in a different order), which can flip the same-octave ratio gate on
-    tied rows — equally valid match sets, not bit-identical ones.
-    FORCE_PALLAS_MATCH overrides (tests use interpret mode on CPU).
-    Headline A/B on-chip: 20.15 (on) vs 19.77 (off) fps median-of-3 —
-    statistically a wash on this device; kept ON for the HBM savings."""
-    if FORCE_PALLAS_MATCH is not None:
-        return FORCE_PALLAS_MATCH
-    import jax
-    return jax.default_backend() not in ("cpu",)
 
 
 @partial(jax.jit, static_argnames=("cam", "n_levels", "scale", "check_rot"))
@@ -149,21 +124,8 @@ def search_by_projection(
     ur_ok = (frame.ur[None, :] < 0) | (dur <= r[:, None])
     cand = win & oct_ok & ur_ok & in_frustum[:, None] & frame.valid[None, :]
 
-    P_, N_ = pts.desc.shape[0], frame.desc.shape[0]
-    if use_pallas_match() and P_ % 256 == 0 and N_ % 256 == 0:
-        # fused MXU kernel: per-tile bit-matmul Hamming + masked best-2
-        # fold in VMEM — the (P, N) distance matrix never exists in HBM
-        from ..ops import pallas_match
-        best_kp, best, second, second_kp = pallas_match.masked_best2(
-            pts.desc, frame.desc, cand)
-    else:
-        dmat = hamming.distance_matrix(pts.desc, frame.desc)
-        d = jnp.where(cand, dmat, hamming.INF_DIST)
-        best_kp = jnp.argmin(d, axis=1)
-        best = jnp.take_along_axis(d, best_kp[:, None], axis=1)[:, 0]
-        d2 = d.at[jnp.arange(d.shape[0]), best_kp].set(hamming.INF_DIST)
-        second_kp = jnp.argmin(d2, axis=1)
-        second = jnp.take_along_axis(d2, second_kp[:, None], axis=1)[:, 0]
+    best_kp, best, second, second_kp = hamming.masked_argmin(
+        hamming.distance_matrix(pts.desc, frame.desc), cand)
     same_lvl = frame.octave[best_kp] == frame.octave[second_kp]
     ratio_ok = (~same_lvl) | (
         best.astype(jnp.float32) <= nn_ratio * second.astype(jnp.float32)
@@ -177,7 +139,7 @@ def search_by_projection(
         ok = ok & rot_ok
 
     # resolve keypoint conflicts: lowest distance per keypoint wins
-    P, N = P_, N_
+    P, N = pts.desc.shape[0], frame.desc.shape[0]
     best_masked = jnp.where(ok, best, hamming.INF_DIST)
     kp_best_dist = (
         jnp.full((N,), hamming.INF_DIST, jnp.int32).at[best_kp].min(best_masked)

@@ -12,21 +12,89 @@ from pathlib import Path
 
 import numpy as np
 
-try:
-    from PIL import Image
-    _HAVE_PIL = True
-except ImportError:  # pragma: no cover
-    _HAVE_PIL = False
+import struct
+import zlib
+
+
+def _unfilter_row(ftype: int, raw: np.ndarray, up: np.ndarray, bpp: int):
+    """Invert one PNG scanline filter (PNG spec §9.2) on uint8 bytes."""
+    if ftype == 0:
+        return raw
+    if ftype == 2:
+        return raw + up
+    out = bytearray(raw.tobytes())
+    prev = up.tobytes()
+    n = len(out)
+    if ftype == 1:
+        for i in range(bpp, n):
+            out[i] = (out[i] + out[i - bpp]) & 0xFF
+    elif ftype == 3:
+        for i in range(n):
+            left = out[i - bpp] if i >= bpp else 0
+            out[i] = (out[i] + ((left + prev[i]) >> 1)) & 0xFF
+    elif ftype == 4:
+        for i in range(n):
+            a = out[i - bpp] if i >= bpp else 0
+            b = prev[i]
+            c = prev[i - bpp] if i >= bpp else 0
+            p = a + b - c
+            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            out[i] = (out[i] + pred) & 0xFF
+    else:
+        raise ValueError(f"bad PNG filter type {ftype}")
+    return np.frombuffer(bytes(out), np.uint8)
+
+
+def read_png_gray(path: str | Path) -> np.ndarray:
+    """Decode a non-interlaced 8- or 16-bit grayscale PNG (the KITTI
+    odometry format) with zlib and numpy only. Returns (H, W) uint8 or
+    uint16."""
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat = 8, []
+    w = h = depth = None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            w, h, depth, color, _, _, interlace = struct.unpack(">IIBBBBB", body)
+            if color != 0 or depth not in (8, 16) or interlace:
+                raise ValueError(f"{path}: only 8/16-bit non-interlaced "
+                                 "grayscale PNGs are supported")
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if w is None:
+        raise ValueError(f"{path}: missing IHDR")
+    bpp = depth // 8
+    stride = w * bpp
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw.reshape(h, stride + 1)
+    rows = np.zeros((h, stride), np.uint8)
+    up = np.zeros(stride, np.uint8)
+    for y in range(h):
+        up = rows[y] = _unfilter_row(int(raw[y, 0]), raw[y, 1:], up, bpp)
+    if depth == 16:
+        return rows.view(">u2").reshape(h, w).astype(np.uint16)
+    return rows
 
 
 def load_gray(path: str | Path) -> np.ndarray:
-    """Grayscale float32 image in [0, 255]."""
-    if not _HAVE_PIL:
-        raise RuntimeError("PIL unavailable for image decoding")
-    img = Image.open(path)
-    if img.mode not in ("L", "I;16"):
-        img = img.convert("L")
-    arr = np.asarray(img, dtype=np.float32)
+    """Grayscale float32 image in [0, 255]. Grayscale PNGs decode with
+    `read_png_gray`; other formats need PIL."""
+    try:
+        arr = read_png_gray(path).astype(np.float32)
+    except ValueError:
+        from PIL import Image
+        img = Image.open(path)
+        if img.mode not in ("L", "I;16"):
+            img = img.convert("L")
+        arr = np.asarray(img, dtype=np.float32)
     if arr.max() > 255.0:  # 16-bit source
         arr = arr / 256.0
     return arr

@@ -98,8 +98,8 @@ class StoredLineSource:
                                valid.astype(np.int32)])
 
     def frame(self, frame_id: int):
-        """KeyLines for one frame — ONE packed host->device transfer (each
-        transfer pays a full serialized link round trip)."""
+        """KeyLines for one frame — ONE packed host->device transfer instead
+        of one per array."""
         import jax
         buf = jax.device_put(self._pack_np(frame_id))
         return _unpack_keylines(buf, 0, self.cap, self.desc_dim)

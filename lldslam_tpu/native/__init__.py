@@ -1,6 +1,6 @@
 """Native (C++) runtime components, consumed through ctypes.
 
-The compute path is JAX/XLA on the TPU; the host runtime around it is
+The compute path is JAX/XLA on the GPU; the host runtime around it is
 native where the reference's is: `loader.cpp` is a threaded PNG
 decoder/prefetcher (the reference decodes with cv::imread inline on the
 tracking thread, stereo_kitti.cc:108). Built on demand with g++ (-lpng) and

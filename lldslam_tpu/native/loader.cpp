@@ -2,7 +2,7 @@
 //
 // The reference's runtime is native C++ end to end; its per-frame image IO
 // is cv::imread on the main thread (Examples/Stereo/stereo_kitti.cc:108).
-// Here the host-side runtime around the TPU compute is native too: a C++
+// Here the host-side runtime around the GPU compute is native too: a C++
 // worker pool decodes PNG frames ahead of the tracker (libpng simplified
 // API), so Python never sits in the decode path and the device queue is fed
 // back-to-back. Exposed through a C ABI consumed via ctypes

@@ -1,10 +1,10 @@
-"""FAST-9/16 corner scoring as a dense vectorized map — TPU-first formulation.
+"""FAST-9/16 corner scoring as a dense vectorized map.
 
 Replaces the per-cell `cv::FAST` calls of `ORBextractor::ComputeKeyPointsOctTree`
 (reference src/ORBextractor.cc:769-829). Instead of branchy per-pixel early-out
 code, we compute the FAST score for EVERY pixel as a fused elementwise program
-(16 shifted images + log-depth circular window reductions), which is exactly
-what the VPU wants. The threshold fallback (20 -> 7, ORBextractor.cc:789-799)
+(16 shifted images + log-depth circular window reductions), which XLA fuses
+into a few memory-bound kernels. The threshold fallback (20 -> 7, ORBextractor.cc:789-799)
 lives in selection (ops/orb._select_level_keypoints): scores are computed once
 at the *minimum* threshold, and the per-cell gate keeps only >ini_th corners
 in cells that have any, falling back to min_th detections where a cell has

@@ -2,8 +2,8 @@
 
 Replaces `ORBmatcher::DescriptorDistance` (reference src/ORBmatcher.cc:1647,
 a popcount loop) and the pairwise search loops of every matcher variant with
-dense masked distance matrices: XLA turns `popcount(xor)` + reductions into
-fused VPU code, so an all-pairs (N x M) distance matrix is cheaper than
+dense masked distance matrices: an all-pairs (N x M) distance matrix is one
+matrix product plus fused elementwise work, cheaper on an accelerator than
 pointer-chasing candidate lists.
 
 Thresholds: TH_LOW=50, TH_HIGH=100, HISTO_LENGTH=30 rotation bins
@@ -30,9 +30,9 @@ def unpack_bits(a: jnp.ndarray) -> jnp.ndarray:
 def distance_matrix(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """(N, 8) uint32 x (M, 8) uint32 -> (N, M) int32 Hamming distances.
 
-    MXU formulation: with bit matrices A, B in {0,1},
-    popcount(a XOR b) = |a| + |b| - 2 A.B^T — one (N,256)x(256,M) matmul on
-    the systolic array instead of an (N, M, 8) popcount pass on the VPU.
+    Bit-matmul formulation: with bit matrices A, B in {0,1},
+    popcount(a XOR b) = |a| + |b| - 2 A.B^T — one (N,256)x(256,M) bf16
+    matrix product instead of an (N, M, 8) XOR+popcount pass.
     bf16 inputs are exact for 0/1; accumulation is forced to f32, so the
     result is exact (max value 256)."""
     A = unpack_bits(a)
@@ -52,17 +52,21 @@ def distance_pairs(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 
 
 def masked_argmin(dist: jnp.ndarray, mask: jnp.ndarray):
-    """Min + argmin per row with invalid entries masked out.
+    """Best and runner-up entry per row with invalid entries masked out.
 
-    Returns (best_idx (N,), best_dist (N,), second_dist (N,)). Rows with no
-    valid entry get best_dist = INF_DIST.
+    Returns (best_idx, best_dist, second_dist, second_idx), each (N,)
+    int32; ties go to the lowest column and rows with no valid entry read
+    INF_DIST. The second is the minimum over every column but best_idx,
+    which is what the same-octave ratio gate of ORBmatcher.cc:117-127
+    compares against.
     """
     d = jnp.where(mask, dist, INF_DIST)
-    best_idx = jnp.argmin(d, axis=-1)
+    best_idx = jnp.argmin(d, axis=-1).astype(jnp.int32)
     best = jnp.take_along_axis(d, best_idx[:, None], axis=-1)[:, 0]
     d2 = d.at[jnp.arange(d.shape[0]), best_idx].set(INF_DIST)
     second = jnp.min(d2, axis=-1)
-    return best_idx, best, second
+    second_idx = jnp.argmin(d2, axis=-1).astype(jnp.int32)
+    return best_idx, best, second, second_idx
 
 
 def mutual_filter(best_ab: jnp.ndarray, best_ba: jnp.ndarray) -> jnp.ndarray:
@@ -111,9 +115,9 @@ def match_descriptors(
     mask = valid_a[:, None] & valid_b[None, :]
     if cand_mask is not None:
         mask = mask & cand_mask
-    idx, best, second = masked_argmin(dist, mask)
+    idx, best, second, _ = masked_argmin(dist, mask)
     ok = (best <= max_dist) & (best.astype(jnp.float32) <= ratio * second.astype(jnp.float32))
     if mutual:
-        idx_b, _, _ = masked_argmin(dist.T, mask.T)
+        idx_b = masked_argmin(dist.T, mask.T)[0]
         ok = ok & (idx_b[idx] == jnp.arange(idx.shape[0]))
     return idx, ok, best

@@ -30,15 +30,15 @@ def build_pyramid(img: jnp.ndarray, n_levels: int, scale: float,
                   quantize: bool = False):
     """img (..., H, W) float32 -> list of n_levels arrays, bilinear
     downsample. Leading batch dims pass through (the stereo frontend stacks
-    left+right into one (2, H, W) program for better VPU utilization).
+    left+right into one (2, H, W) program, one launch for both views).
 
     `quantize`: round every level to integer intensities, mirroring the
     reference's uint8 pyramid (cv2.resize into mvImagePyramid,
     ORBextractor.cc:1063-1084 — each level IS uint8 there). Integer levels
     are exact in bfloat16, which lets the frame build carry the pyramid at
-    half the HBM bytes (every image-sized frontend op is bandwidth-bound on
-    this device) without introducing cross-view quantization noise beyond
-    what the reference itself has."""
+    half the device-memory bytes (image-sized frontend ops are memory-bound)
+    without introducing cross-view quantization noise beyond what the
+    reference itself has."""
     h, w = img.shape[-2:]
     batch = img.shape[:-2]
     shapes = pyramid_shapes(h, w, n_levels, scale)

@@ -1,6 +1,6 @@
 """Batched ORB keypoint extraction: pyramid FAST + orientation + rotated BRIEF.
 
-TPU-first replacement for `ORBextractor` (reference src/ORBextractor.cc):
+Batched device replacement for `ORBextractor` (reference src/ORBextractor.cc):
 - dense FAST score map per level (fast.py) instead of per-cell cv::FAST calls
   (ORBextractor.cc:769-829),
 - spatial distribution via per-cell top-k + global per-level top-n, a batched
@@ -173,10 +173,9 @@ def _ic_angle(img: jnp.ndarray, xy: jnp.ndarray) -> jnp.ndarray:
     Moment maps m10/m01 over the radius-15 circular patch are computed from
     per-row prefix sums: for each dy the row-window sum over
     dx in [-u, u] (u = umax(|dy|)) is a difference of two statically shifted
-    prefix slices. ~31x6 elementwise ops/pixel, all fusable — replaces a
-    31x31x2 `conv_general_dilated` that XLA lowers catastrophically for
-    1-channel inputs on TPU (measured 330 ms/frame at KITTI L0; this form is
-    ~2 ms).
+    prefix slices. ~31x6 elementwise ops/pixel, all fusable — instead of a
+    31x31x2 `conv_general_dilated` over a 1-channel image, a shape
+    convolution libraries handle poorly.
 
     All prefix arithmetic is EXACT int32: the level image is rounded to
     integers (the reference computes IC_Angle on uint8 level images,
@@ -245,59 +244,12 @@ def _pack_bits(bits: jnp.ndarray) -> jnp.ndarray:
 
 def _brief_desc(blur: jnp.ndarray, xy: jnp.ndarray, angle: jnp.ndarray) -> jnp.ndarray:
     """Rotated BRIEF-256 on the blurred level image (computeOrbDescriptor,
-    ORBextractor.cc:108-147). Returns (n, 8) uint32. XLA-gather formulation
-    (reference path for CPU tests and small images)."""
+    ORBextractor.cc:108-147). Returns (n, 8) uint32: one (n, 256, 2) gather
+    of the clipped tap coordinates, then a pairwise compare."""
     h, w = blur.shape
     gy, gx = _rotated_taps(xy, angle, h, w)
     vals = blur[gy, gx]  # (n, 256, 2)
     return _pack_bits(vals[..., 0] < vals[..., 1])
-
-
-def use_pallas_brief() -> bool:
-    """The Pallas sampler runs on real TPU backends; CPU (tests, virtual
-    meshes) keeps the XLA gather path. Override via module flag."""
-    if FORCE_PALLAS_BRIEF is not None:
-        return FORCE_PALLAS_BRIEF
-    return jax.default_backend() not in ("cpu",)
-
-
-FORCE_PALLAS_BRIEF: bool | None = None
-
-
-def _brief_desc_stack(blur_stack: jnp.ndarray, w_real: int, xy: jnp.ndarray,
-                      view: jnp.ndarray, angle: jnp.ndarray) -> jnp.ndarray:
-    """Rotated BRIEF for keypoints spread over a stack of images of one
-    shape (the L/R pair, or a single view), via the Pallas patch sampler
-    (ops/patch_sample.py) — the (n, 512)-tap gather is the dominant
-    frame-build cost under XLA on TPU.
-
-    blur_stack (V, H, Wp) with Wp % 128 == 0, w_real the unpadded width;
-    xy (n, 2) int32 level coords; view (n,) int32. Returns (n, 8) uint32.
-    """
-    from . import patch_sample as ps
-
-    V, H, Wp = blur_stack.shape
-    n = xy.shape[0]
-    gy, gx = _rotated_taps(xy, angle, H, w_real)
-    # window origins: rows y-19 (clipped), cols 128-aligned below x-19 —
-    # every clipped tap provably lands inside the (40, 256) window
-    x = xy[:, 0]
-    y = xy[:, 1]
-    # 8-aligned row origin (Mosaic sublane constraint); floor(y-19, 8) still
-    # covers every clipped tap because ROWS - 26 >= 21
-    r0 = jnp.clip(((y - 19) // 8) * 8, 0, H - ps.ROWS)
-    c0 = jnp.clip(((x - 19) // 128) * 128, 0, Wp - ps.COLS)
-    # sample order: 256 'a' taps then 256 'b' taps
-    iy = jnp.concatenate([gy[:, :, 0], gy[:, :, 1]], axis=1) - r0[:, None]
-    ix = jnp.concatenate([gx[:, :, 0], gx[:, :, 1]], axis=1) - c0[:, None]
-    meta = jnp.stack([view, r0, c0, jnp.zeros_like(r0)], axis=-1)
-    pad = (-n) % ps.KB
-    if pad:
-        iy = jnp.pad(iy, ((0, pad), (0, 0)))
-        ix = jnp.pad(ix, ((0, pad), (0, 0)))
-        meta = jnp.pad(meta, ((0, pad), (0, 0)))
-    vals = ps.sample_patches(blur_stack, meta, iy, ix)[:n]
-    return _pack_bits(vals[:, :256] < vals[:, 256:])
 
 
 @partial(jax.jit, static_argnames=("cfg",))
@@ -374,15 +326,13 @@ def extract_stack_pyr(pyr, cfg: OrbConfig = OrbConfig()) -> Keypoints:
     """ORB extraction for a STACK of same-shape views per level
     (pyr: tuple of (V, H_l, W_l) arrays — V=2 for a stereo pair).
 
-    Identical math to `vmap(extract_pyr)` but the rotated-BRIEF taps go
-    through the Pallas patch sampler on TPU (one kernel per level over both
-    views), which replaces the XLA element-gather that dominated frame build.
-    Returns Keypoints with leading dim V.
+    Identical math to `vmap(extract_pyr)`; the blurred level is stored at
+    the pyramid dtype before the BRIEF gather. Returns Keypoints with
+    leading dim V.
     """
     V = pyr[0].shape[0]
     budgets = cfg.per_level_budget()
     scales = cfg.scale_factors()
-    from . import patch_sample as psmp
     parts = []
     for l, (im_l, n_l, s_l) in enumerate(zip(pyr, budgets, scales)):
         _, h, w = im_l.shape
@@ -402,15 +352,7 @@ def extract_stack_pyr(pyr, cfg: OrbConfig = OrbConfig()) -> Keypoints:
         # <= 255, then stores back at the pyramid dtype (ints exact in bf16)
         blur = jnp.round(jax.vmap(image.gaussian_blur)(im_l)) \
             .astype(im_l.dtype)
-        wp = ((w + 127) // 128) * 128
-        if use_pallas_brief() and h >= psmp.ROWS and wp >= psmp.COLS:
-            blur_p = jnp.pad(blur, ((0, 0), (0, 0), (0, wp - w)))
-            view = jnp.repeat(jnp.arange(V, dtype=jnp.int32), n_l)
-            desc = _brief_desc_stack(
-                blur_p, w, xy_l.reshape(V * n_l, 2), view,
-                ang.reshape(V * n_l)).reshape(V, n_l, 8)
-        else:
-            desc = jax.vmap(_brief_desc)(blur, xy_l, ang)
+        desc = jax.vmap(_brief_desc)(blur, xy_l, ang)
         valid = resp > 0
         xy0 = xy_l.astype(jnp.float32) * s_l
         parts.append((xy0, resp, jnp.full((V, n_l), l, jnp.int32), ang,

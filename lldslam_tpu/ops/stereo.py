@@ -24,57 +24,34 @@ from . import hamming
 from .orb import Keypoints, OrbConfig
 
 
-def _sample_windows(kp_l, ul, vl, ur, pyr_l, pyr_r, cfg, W: int, L: int):
-    """Per-level SAD window extraction through ops/patch_sample: returns
-    (patch (n, 11, 11) from the left level image, strip (n, 11, 11+2L) from
-    the right). Keypoint slots are level-ordered with static ranges, so the
-    level loop uses static slices only."""
-    from . import patch_sample as psmp
+def gather_windows(ul, vl, ur, octave, pyr_l, pyr_r, W: int, L: int):
+    """SAD window extraction at each keypoint's octave: returns
+    (patch (n, 2W+1, 2W+1) from the left level image around (ul, vl),
+    strip (n, 2W+1, 2W+1+2L) from the right level image around (ur, vl)).
 
-    n = ul.shape[0]
-    budgets = cfg.per_level_budget()
-    patch = jnp.zeros((n, 2 * W + 1, 2 * W + 1), jnp.float32)
-    strip = jnp.zeros((n, 2 * W + 1, 2 * W + 1 + 2 * L), jnp.float32)
+    ul/vl/ur are integer level coordinates; taps are clipped into the
+    keypoint's own level, so border keypoints repeat edge pixels. One gather
+    from a level-stacked (levels, H0, W0) pyramid serves every octave."""
+    H0, W0 = pyr_l[0].shape
+    stk_l = jnp.stack([jnp.pad(p, ((0, H0 - p.shape[0]), (0, W0 - p.shape[1])))
+                       for p in pyr_l])  # (levels, H0, W0)
+    stk_r = jnp.stack([jnp.pad(p, ((0, H0 - p.shape[0]), (0, W0 - p.shape[1])))
+                       for p in pyr_r])
+    lh = jnp.asarray([p.shape[0] for p in pyr_l], jnp.int32)
+    lw = jnp.asarray([p.shape[1] for p in pyr_l], jnp.int32)
+    lvl = jnp.clip(octave, 0, len(pyr_l) - 1)
+    hk = lh[lvl]  # (n,) per-keypoint level dims
+    wk = lw[lvl]
+
     oy = jnp.arange(-W, W + 1)
     ox_p = jnp.arange(-W, W + 1)
     ox_s = jnp.arange(-W - L, W + L + 1)
-    off = 0
-    for l, n_l in enumerate(budgets):
-        imL, imR = pyr_l[l], pyr_r[l]
-        h, w = imL.shape
-        wp = ((w + 127) // 128) * 128
-        stack = jnp.stack([jnp.pad(imL, ((0, 0), (0, wp - w))),
-                           jnp.pad(imR, ((0, 0), (0, wp - w)))])
-        sl = slice(off, off + n_l)
-        ul_l = jnp.clip(ul[sl], 0, w - 1)
-        vl_l = jnp.clip(vl[sl], 0, h - 1)
-        ur_l = jnp.clip(ur[sl], 0, w - 1)
-        r0 = jnp.clip(((vl_l - W) // 8) * 8, 0, h - psmp.ROWS)
-
-        def taps(ucenter, view, ox, S_pad):
-            c0 = jnp.clip(((ucenter - W - L) // 128) * 128, 0, wp - psmp.COLS)
-            gy = jnp.clip(vl_l[:, None, None] + oy[None, :, None], 0, h - 1)
-            gx = jnp.clip(ucenter[:, None, None] + ox[None, None, :], 0, w - 1)
-            iy = jnp.broadcast_to(gy - r0[:, None, None],
-                                  (n_l, len(oy), len(ox))).reshape(n_l, -1)
-            ix = jnp.broadcast_to(gx - c0[:, None, None],
-                                  (n_l, len(oy), len(ox))).reshape(n_l, -1)
-            S = iy.shape[1]
-            iy = jnp.pad(iy, ((0, 0), (0, S_pad - S)))
-            ix = jnp.pad(ix, ((0, 0), (0, S_pad - S)))
-            meta = jnp.stack([jnp.full_like(r0, view), r0, c0,
-                              jnp.zeros_like(r0)], axis=-1)
-            npad = (-n_l) % psmp.KB
-            if npad:
-                iy = jnp.pad(iy, ((0, npad), (0, 0)))
-                ix = jnp.pad(ix, ((0, npad), (0, 0)))
-                meta = jnp.pad(meta, ((0, npad), (0, 0)))
-            vals = psmp.sample_patches(stack, meta, iy, ix)[:n_l, :S]
-            return vals.reshape(n_l, len(oy), len(ox))
-
-        patch = patch.at[sl].set(taps(ul_l, 0, ox_p, 128))
-        strip = strip.at[sl].set(taps(ur_l, 1, ox_s, 256))
-        off += n_l
+    yy = jnp.clip(vl[:, None] + oy[None, :], 0, hk[:, None] - 1)    # (n, 2W+1)
+    xxp = jnp.clip(ul[:, None] + ox_p[None, :], 0, wk[:, None] - 1)
+    xxs = jnp.clip(ur[:, None] + ox_s[None, :], 0, wk[:, None] - 1)
+    l3 = lvl[:, None, None]
+    patch = stk_l[l3, yy[:, :, None], xxp[:, None, :]]
+    strip = stk_r[l3, yy[:, :, None], xxs[:, None, :]]
     return patch, strip
 
 
@@ -122,41 +99,8 @@ def match_stereo(
     vl = jnp.round(kp_l.xy[:, 1] * inv_s).astype(jnp.int32)
     ur = jnp.round(u_r0 * inv_s).astype(jnp.int32)
 
-    from .orb import use_pallas_brief
-    from . import patch_sample as psmp
-    pallas_ok = use_pallas_brief() and all(
-        p.shape[0] >= psmp.ROWS and ((p.shape[1] + 127) // 128) * 128
-        >= psmp.COLS for p in pyr_l)
-    if pallas_ok:
-        # window extraction via the Pallas patch sampler, per level: the
-        # keypoint array is level-ordered with STATIC per-level ranges
-        # (orb.extract_stack_pyr concatenation), so each level's slice reads
-        # its own (2, H_l, Wp_l) image stack — no giant stacked-pyramid
-        # gather (that XLA element-gather was ~8 ms/frame at KITTI size)
-        patch, strip = _sample_windows(
-            kp_l, ul, vl, ur, pyr_l, pyr_r, cfg, W, L)
-    else:
-        # XLA fallback: one gather from a level-stacked pyramid
-        H0, W0 = pyr_l[0].shape
-        stk_l = jnp.stack([jnp.pad(p, ((0, H0 - p.shape[0]), (0, W0 - p.shape[1])))
-                           for p in pyr_l])  # (levels, H0, W0)
-        stk_r = jnp.stack([jnp.pad(p, ((0, H0 - p.shape[0]), (0, W0 - p.shape[1])))
-                           for p in pyr_r])
-        lh = jnp.asarray([p.shape[0] for p in pyr_l], jnp.int32)
-        lw = jnp.asarray([p.shape[1] for p in pyr_l], jnp.int32)
-        lvl = jnp.clip(kp_l.octave, 0, len(pyr_l) - 1)
-        hk = lh[lvl]  # (n,) per-keypoint level dims
-        wk = lw[lvl]
-
-        oy = jnp.arange(-W, W + 1)
-        ox_p = jnp.arange(-W, W + 1)
-        ox_s = jnp.arange(-W - L, W + L + 1)
-        yy = jnp.clip(vl[:, None] + oy[None, :], 0, hk[:, None] - 1)    # (n, 11)
-        xxp = jnp.clip(ul[:, None] + ox_p[None, :], 0, wk[:, None] - 1)  # (n, 11)
-        xxs = jnp.clip(ur[:, None] + ox_s[None, :], 0, wk[:, None] - 1)  # (n, 11+2L)
-        l3 = lvl[:, None, None]
-        patch = stk_l[l3, yy[:, :, None], xxp[:, None, :]]  # (n, 11, 11)
-        strip = stk_r[l3, yy[:, :, None], xxs[:, None, :]]  # (n, 11, 11+2L)
+    patch, strip = gather_windows(ul, vl, ur, kp_l.octave, pyr_l, pyr_r,
+                                  W, L)
     # center-subtract both (Frame.cc:624,644: IL - IL(center))
     patch_c = patch - patch[:, W, W][:, None, None]
     costs = []

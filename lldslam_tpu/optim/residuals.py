@@ -71,7 +71,7 @@ def point_jacobians_stereo(cam: StereoCamera, T_cw: jnp.ndarray, X: jnp.ndarray)
     # d Xc / d xi = [I | -hat(Xc)] (left-multiplicative increment), expanded
     # in closed form: J_pose = [-dproj | dproj @ hat(Xc)], and row i of
     # A @ hat(v) is a_i x v — elementwise ops instead of a huge batch of
-    # 3x3 @ 3x6 matmuls (XLA lowers tiny batched dots poorly on TPU).
+    # 3x3 @ 3x6 matmuls (tiny batched dots make poor matrix-unit work).
     Jw = jnp.cross(dproj, Xc[..., None, :])
     J_pose = jnp.concatenate([-dproj, Jw], axis=-1)
     J_point = -(dproj @ R)

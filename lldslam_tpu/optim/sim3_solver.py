@@ -4,7 +4,7 @@ Replaces `Sim3Solver` (reference src/Sim3Solver.cc): Horn 1987 absolute
 orientation (centroids, M = Pr1 Pr2^T, 4x4 N-matrix top eigenvector ->
 quaternion, Sim3Solver.cc:226-308) inside RANSAC over 3-point minimal sets
 (:130-207). The reference iterates sequentially with adaptive termination;
-on TPU every hypothesis is solved and scored in one batched program
+here every hypothesis is solved and scored in one batched program
 (vmap over hypotheses, one (H, N) reprojection pass), then argmax —
 the SURVEY.md §7 "sample all hypotheses in parallel" pattern.
 

@@ -199,9 +199,9 @@ class PipelinedMultiSequenceDriver(MultiSequenceDriver):
     solo path does). Sequences that fall out of state OK drop to their own
     (pipelined) tracker and rejoin the batch when healthy.
 
-    This is what makes the BASELINE 13-sequence sweep PAY: the round-3
-    driver re-stacked state and paid a fresh ~120 ms readback EVERY frame
-    (measured 0.31x a solo run at the same per-sequence workload)."""
+    The alternative, re-stacking state and reading results back EVERY
+    frame, puts a readback per frame on the critical path (kept until the
+    sweep is measured on the GPU, ROADMAP Design)."""
 
     def __init__(self, cfg: SlamConfig, n_seq: int,
                  enable_loops: bool = False, view_cap: int = 2048,

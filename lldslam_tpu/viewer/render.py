@@ -2,7 +2,7 @@
 
 Replaces the Pangolin/OpenCV GUI stack (`Viewer`, `FrameDrawer`, `MapDrawer`
 — reference src/Viewer.cc, src/FrameDrawer.cc, src/MapDrawer.cc) with
-offscreen rasterization: no display server exists on a TPU host, and the
+offscreen rasterization: no display server exists on a GPU server, and the
 observability surface a production deployment needs is files/streams, not
 windows. Unlike the reference's MapDrawer, map LINES are drawn too (the
 reference never renders them, SURVEY.md §1 L5 note).

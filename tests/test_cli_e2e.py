@@ -14,7 +14,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 DATA = Path(__file__).parent / "data" / "mini_kitti"
 

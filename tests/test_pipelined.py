@@ -1,11 +1,12 @@
 """Pipelined (finalize-lag-1) tracker: equivalence with the synchronous
 schedule on a synthetic stereo sequence."""
+import os
 import sys
 
 import numpy as np
 import pytest
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from lldslam_tpu.config import CameraConfig, SlamConfig, TrackingConfig
 from lldslam_tpu.ops.orb import OrbConfig

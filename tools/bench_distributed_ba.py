@@ -19,20 +19,26 @@ import time
 import numpy as np
 
 
-def build_problem(K=256, P=40_000, O=1 << 19, seed=0):
+def build_problem(K=256, P=40_000, O=1 << 19, seed=0, noise_px=0.0):
+    """Global-BA problem with exact (noise_px=0) or noisy observations;
+    landmarks start 5 cm off the truth."""
     import jax.numpy as jnp
     from lldslam_tpu.optim import ba
 
     rng = np.random.default_rng(seed)
+    # keyframe k sits at world z = k (1 m spacing along the optical axis);
+    # landmarks spread along the path, each observed from keyframes 2-40 m
+    # behind it, so every observation has positive depth
     poses = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
     poses[:, 2, 3] = -np.arange(K) * 1.0
     t = np.arange(P) / P * K
     pts = np.stack([
         rng.uniform(-20, 20, P), rng.uniform(-5, 10, P),
-        -t + rng.uniform(5, 60, P),
+        t + rng.uniform(5, 60, P),
     ], -1).astype(np.float32)
-    k = rng.integers(0, K, O).astype(np.int32)
     p = rng.integers(0, P, O).astype(np.int32)
+    k = np.clip(np.floor(pts[p, 2] - rng.uniform(2, 40, O)), 0, K - 1) \
+        .astype(np.int32)
     cam = _camera()
     Xc = np.einsum("oij,oj->oi", poses[k, :3, :3], pts[p]) + poses[k, :3, 3]
     ok = Xc[:, 2] > 1.0
@@ -40,7 +46,10 @@ def build_problem(K=256, P=40_000, O=1 << 19, seed=0):
     u = cam.fx * Xc[:, 0] / z + cam.cx
     v = cam.fy * Xc[:, 1] / z + cam.cy
     ur = u - cam.bf / z
-    uvr = np.stack([u, v, ur], -1).astype(np.float32)
+    uvr = np.stack([u, v, ur], -1)
+    if noise_px:
+        uvr = uvr + rng.normal(0, noise_px, uvr.shape)
+    uvr = uvr.astype(np.float32)
     problem = ba.BAProblem(
         poses=jnp.asarray(poses),
         points=jnp.asarray(pts + rng.normal(0, 0.05, pts.shape).astype(np.float32)),
@@ -56,7 +65,7 @@ def build_problem(K=256, P=40_000, O=1 << 19, seed=0):
 
 
 def build_joint_problem(K=256, P=40_000, O=1 << 19, L=2048, OL=16_384,
-                        seed=0):
+                        seed=0, noise_px=0.0):
     """Joint point+line global-BA problem at the KITTI-LBD scale: the point
     half of build_problem plus L 4-DoF lines with OL stereo endpoint
     observations (reference global BA marginalizes both landmark classes
@@ -65,19 +74,20 @@ def build_joint_problem(K=256, P=40_000, O=1 << 19, L=2048, OL=16_384,
     from lldslam_tpu.geometry import lines as gl
     from lldslam_tpu.optim import lines_ba
 
-    base = build_problem(K=K, P=P, O=O, seed=seed)
+    base = build_problem(K=K, P=P, O=O, seed=seed, noise_px=noise_px)
     rng = np.random.default_rng(seed + 1)
     cam = _camera()
     t = np.arange(L) / L * K
     mid = np.stack([rng.uniform(-15, 15, L), rng.uniform(-4, 8, L),
-                    -t + rng.uniform(8, 40, L)], -1).astype(np.float32)
+                    t + rng.uniform(8, 40, L)], -1).astype(np.float32)
     dd = rng.normal(size=(L, 3)).astype(np.float32)
     dd /= np.linalg.norm(dd, axis=-1, keepdims=True)
     A, B = mid - 1.5 * dd, mid + 1.5 * dd
     q, alpha = gl.minimal_from_x0dir(
         *gl.closest_point_form(jnp.asarray(mid), jnp.asarray(dd)))
-    lk = rng.integers(0, K, OL).astype(np.int32)
     li = rng.integers(0, L, OL).astype(np.int32)
+    lk = np.clip(np.floor(mid[li, 2] - rng.uniform(4, 30, OL)), 0, K - 1) \
+        .astype(np.int32)
     poses = np.asarray(base.poses)
 
     def proj2(T, X):
@@ -93,6 +103,10 @@ def build_joint_problem(K=256, P=40_000, O=1 << 19, L=2048, OL=16_384,
     x2l, ok2 = proj2(poses[lk], B[li])
     x1r, ok3 = proj2(Tr, A[li])
     x2r, ok4 = proj2(Tr, B[li])
+    if noise_px:
+        x1l, x2l, x1r, x2r = (
+            (x + rng.normal(0, noise_px, x.shape)).astype(np.float32)
+            for x in (x1l, x2l, x1r, x2r))
     lobs = lines_ba.LineBAObs(
         k=jnp.asarray(lk), l=jnp.asarray(li),
         x1l=jnp.asarray(x1l), x2l=jnp.asarray(x2l),

@@ -5,7 +5,7 @@ The reference distributes FAST candidates with an adaptive quadtree
 subdivide until #nodes >= budget, keep the best-response corner per node.
 This framework uses fixed 30-px cells with per-cell top-k + global top-n
 (ops/orb._select_level_keypoints) because the quadtree's data-dependent
-list surgery has no efficient fixed-shape form on TPU. SURVEY.md §7
+list surgery has no efficient fixed-shape form on an accelerator. SURVEY.md §7
 sanctioned that as a starting point; this harness measures what the
 approximation costs.
 
@@ -27,7 +27,7 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-if not os.environ.get("QT_TPU"):
+if not os.environ.get("QT_DEVICE"):
     os.environ.setdefault("LLDSLAM_NO_COMPILE_CACHE", "1")
     import jax
     jax.config.update("jax_platforms", "cpu")

@@ -1,9 +1,10 @@
-"""Fine-grained profile of the per-frame and keyframe paths on the real TPU.
+"""Fine-grained profile of the per-frame and keyframe paths on the GPU.
 
 Times, in steady state (post-compile), each device program separately:
   build_frame | _track_step | end-to-end process() | KF path pieces
 and prints a ms breakdown to stderr.
 """
+import os
 import sys
 import time
 
@@ -27,7 +28,7 @@ def timeit(fn, *a, n=10, **kw):
 
 
 def main():
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from lldslam_tpu.config import CameraConfig, SlamConfig, TrackingConfig
     from lldslam_tpu.ops.orb import OrbConfig
     from lldslam_tpu.system import System

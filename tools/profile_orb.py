@@ -1,9 +1,10 @@
 """Per-stage timing of ORB extraction + stereo on the real device."""
+import os
 import sys
 import time
 from functools import partial
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp

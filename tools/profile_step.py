@@ -1,4 +1,4 @@
-"""Profile the per-frame device programs on the real TPU.
+"""Profile the per-frame device programs on the GPU.
 
 Times (steady state, block_until_ready):
   - build_frame (ORB pyramid + FAST + BRIEF + stereo depth)

@@ -1,4 +1,5 @@
 """Device-only (fori_loop-chained) breakdown of build_frame + _track_step."""
+import os
 import sys
 import time
 from functools import partial
@@ -7,7 +8,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def log(m):
@@ -90,16 +91,12 @@ def main():
         return x + out * 1e-20
     loop_time(blur_all, pyr[0], label="blur all levels (pair)")
 
-    # whole extract, pallas vs xla
-    for flag, name in ((True, "pallas"), (False, "xla")):
-        orb.FORCE_PALLAS_BRIEF = flag
-
-        def ext(x, i):
-            kp = orb.extract_stack_pyr.__wrapped__((x,) + pyr[1:], cfg)
-            return x + 1e-20 * (jnp.sum(kp.desc.astype(jnp.float32))
-                                + jnp.sum(kp.xy) + jnp.sum(kp.angle))
-        loop_time(ext, pyr[0], label=f"extract_stack_pyr ({name})")
-    orb.FORCE_PALLAS_BRIEF = None
+    # whole extract
+    def ext(x, i):
+        kp = orb.extract_stack_pyr.__wrapped__((x,) + pyr[1:], cfg)
+        return x + 1e-20 * (jnp.sum(kp.desc.astype(jnp.float32))
+                            + jnp.sum(kp.xy) + jnp.sum(kp.angle))
+    loop_time(ext, pyr[0], label="extract_stack_pyr")
 
     # stereo match
     kp = jax.jit(lambda p: orb.extract_stack_pyr(p, cfg))(pyr)

@@ -1,4 +1,5 @@
 """Decisive timing: force execution with a device_get of a derived scalar."""
+import os
 import sys
 import time
 from functools import partial
@@ -25,7 +26,7 @@ def timeit_get(fn, *a, n=10):
 
 
 def main():
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from lldslam_tpu.ops import image, orb, stereo
     from lldslam_tpu.frontend.frame import build_frame
     from lldslam_tpu.config import CameraConfig
